@@ -44,11 +44,11 @@ def main():
 
     import jax
 
-    from copula_var_tpu.utils.compile_cache import enable_persistent_cache
+    from copula_var.utils.compile_cache import enable_persistent_cache
     enable_persistent_cache()
 
-    from copula_var_tpu.backtest import create_var_backtest
-    from copula_var_tpu.data import synthetic_dataset
+    from copula_var.backtest import create_var_backtest
+    from copula_var.data import synthetic_dataset
 
     data = synthetic_dataset(
         jax.random.PRNGKey(0), args.insample + args.days, args.insample,

@@ -4,7 +4,7 @@ The Hamilton filter's per-step transition apply is either a dense
 (2^k, 2^k) matvec (O(4^k)) or k symmetric 2x2 contractions on the
 reshaped state (O(k 2^k), `models/msm.py::kron_transition_matvec`).
 `filter_states` switches at k > _DENSE_K_MAX (= 6); this benchmark
-measures the real crossover on the session TPU (VERDICT r03 task #6).
+measures the real crossover on the attached device (VERDICT r03 task #6).
 
 Run: python benchmarks/msm_k_scaling.py  [N]
 Prints one line per (k, mode) with warm medians over 5 reps.
@@ -20,8 +20,8 @@ import numpy as np
 
 
 def main(n_steps=1135):
-    from copula_var_tpu.models import msm
-    from copula_var_tpu.utils.compile_cache import enable_persistent_cache
+    from copula_var.models import msm
+    from copula_var.utils.compile_cache import enable_persistent_cache
 
     enable_persistent_cache()
     import jax

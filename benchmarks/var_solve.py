@@ -33,20 +33,19 @@ def main():
 
     import jax
 
-    from copula_var_tpu.utils.compile_cache import enable_persistent_cache
+    from copula_var.utils.compile_cache import enable_persistent_cache
     enable_persistent_cache()
 
-    from copula_var_tpu.backtest import create_var_backtest
-    from copula_var_tpu.data import synthetic_dataset
+    from copula_var.backtest import create_var_backtest
+    from copula_var.data import synthetic_dataset
 
     total = args.insample + args.days
     data = synthetic_dataset(
         jax.random.PRNGKey(0), total, args.insample, spec=("garch", "garch")
     )
+    # engine='pallas' compiles its kernel for the GPU and refuses any
+    # other backend
     engines = ["xla", "pallas"] if args.engine == "both" else [args.engine]
-    if "pallas" in engines and jax.devices()[0].platform != "tpu":
-        print("NOTE: no TPU attached — pallas runs in interpret mode "
-              "(correctness only, not speed).")
 
     for engine in engines:
         bt = create_var_backtest(

@@ -43,11 +43,11 @@ def series_hash(arr):
 
 
 def main():
-    from copula_var_tpu import data as data_mod
-    from copula_var_tpu import stats
-    from copula_var_tpu.backtest import create_var_backtest
-    from copula_var_tpu.utils.artifacts import save_artifacts
-    from copula_var_tpu.utils.compile_cache import enable_persistent_cache
+    from copula_var import data as data_mod
+    from copula_var import stats
+    from copula_var.backtest import create_var_backtest
+    from copula_var.utils.artifacts import save_artifacts
+    from copula_var.utils.compile_cache import enable_persistent_cache
 
     enable_persistent_cache()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

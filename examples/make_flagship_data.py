@@ -63,7 +63,7 @@ def flagship_prices():
 def write_flagship_csv(prices, dates, columns, path):
     """Write the committed flagship schema: a `date` column (ISO) plus
     one adjusted-close column per ticker, prices rounded to 6 decimals.
-    `copula_var_tpu.data.from_csv(path, n_insample=1135)` consumes it
+    `copula_var.data.from_csv(path, n_insample=1135)` consumes it
     directly (schema round-trip asserted by tests/test_flagship.py)."""
     import pandas as pd
 

@@ -27,9 +27,9 @@ def main():
 
     import jax
 
-    from copula_var_tpu import plots
-    from copula_var_tpu.models import fit as mfit
-    from copula_var_tpu.models import garch, msm, ukf
+    from copula_var import plots
+    from copula_var.models import fit as mfit
+    from copula_var.models import garch, msm, ukf
 
     key = jax.random.PRNGKey(0)
     k1, k2, k3 = jax.random.split(key, 3)

@@ -1,4 +1,4 @@
-"""End-to-end example: the reference `main.py` pipeline, TPU-native.
+"""End-to-end example: the reference `main.py` pipeline on the device.
 
 Runs two out-of-sample VaR backtests over the same 2-asset dataset —
 Student copula + GARCH and Student copula + MSM — and plots both VaR
@@ -42,11 +42,15 @@ def main():
                          "f32 kernels, ONE dispatch per solve), sharded / "
                          "sharded_pallas (day-sharded over the device "
                          "mesh), grid_sharded (grid rows sharded, psum "
-                         "over ICI)")
+                         "across the mesh)")
     args = ap.parse_args()
 
-    from copula_var_tpu import data as data_mod
-    from copula_var_tpu.config import BacktestConfig, run_backtest
+    import jax
+
+    # the 'xla' engine's parity contract is f64; JAX defaults to f32
+    jax.config.update("jax_enable_x64", True)
+    from copula_var import data as data_mod
+    from copula_var.config import BacktestConfig, run_backtest
 
     if args.tickers:
         data = data_mod.from_yfinance(
@@ -55,8 +59,6 @@ def main():
     elif args.csv:
         data = data_mod.from_csv(args.csv, args.n_insample)
     else:
-        import jax
-
         n_total = 260 if args.quick else args.synthetic_days
         n_in = 220 if args.quick else args.n_insample
         data = data_mod.synthetic_dataset(

@@ -4,7 +4,7 @@ The reference at /root/reference is pure Python + numba `@njit`. numba is not
 installed in this image, so we substitute a passthrough decorator: every njit
 kernel then runs as plain Python/numpy, producing the exact values the compiled
 version would (numba compiles the same semantics). Tests import reference
-modules through `ref(name)` and compare our TPU kernels against them at f64.
+modules through `ref(name)` and compare our kernels against them at f64.
 
 This module never copies reference code — it executes it in place, read-only.
 """
@@ -54,7 +54,14 @@ def _install_yfinance_stub():
 
 
 def ref(module_name: str):
-    """Import a module from the reference tree (e.g. 'garch.estimation')."""
+    """Import a module from the reference tree (e.g. 'garch.estimation').
+    Called inside a test; skips that test when the tree is absent."""
+    import os
+
+    import pytest
+
+    if not os.path.isdir(REFERENCE_ROOT):
+        pytest.skip(f"reference tree {REFERENCE_ROOT} not present")
     _install_numba_stub()
     _install_yfinance_stub()
     if REFERENCE_ROOT not in sys.path:

@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from copula_var_tpu.models import fit as mfit
-from copula_var_tpu.models import garch as garch_mod
-from copula_var_tpu.models import msm as msm_mod
-from copula_var_tpu.models import ukf as ukf_mod
+from copula_var.models import fit as mfit
+from copula_var.models import garch as garch_mod
+from copula_var.models import msm as msm_mod
+from copula_var.models import ukf as ukf_mod
 
 
 def _garch_panel(rng, n=400, A=3):

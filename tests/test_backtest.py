@@ -6,8 +6,8 @@ import pytest
 
 import jax
 
-from copula_var_tpu.backtest import create_var_backtest
-from copula_var_tpu.data import synthetic_dataset
+from copula_var.backtest import create_var_backtest
+from copula_var.data import synthetic_dataset
 
 
 @pytest.fixture(scope="module")

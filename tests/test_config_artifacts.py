@@ -6,9 +6,9 @@ import pytest
 
 import jax
 
-from copula_var_tpu.config import BacktestConfig, run_backtest
-from copula_var_tpu.data import synthetic_dataset
-from copula_var_tpu.utils import StageTimer, load_artifacts, save_artifacts
+from copula_var.config import BacktestConfig, run_backtest
+from copula_var.data import synthetic_dataset
+from copula_var.utils import StageTimer, load_artifacts, save_artifacts
 
 
 def test_config_roundtrip():
@@ -47,7 +47,7 @@ def test_config_driven_run_and_artifacts(tmp_path):
 
 def test_artifacts_msm_roundtrip(tmp_path):
     data = synthetic_dataset(jax.random.PRNGKey(6), 160, 150, spec=("msm", "garch"))
-    from copula_var_tpu.backtest import create_var_backtest
+    from copula_var.backtest import create_var_backtest
 
     bt = create_var_backtest(
         data, "msm", "plackett", num_points=24, k=2, basin_iter=5

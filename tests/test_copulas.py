@@ -4,8 +4,8 @@ oracles (`copulas/{gaussian,student,plackett}` run via the numba stub)."""
 import numpy as np
 import pytest
 
-from copula_var_tpu import copulas
-from copula_var_tpu.copulas import gaussian, plackett, student
+from copula_var import copulas
+from copula_var.copulas import gaussian, plackett, student
 
 from tests._reference import ref
 

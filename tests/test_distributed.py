@@ -3,7 +3,7 @@
 Exercises `parallel/distributed.py` for real: two subprocesses join a
 jax.distributed cluster over a localhost coordinator, build the global
 mesh spanning both processes' devices, and run ONE jitted cross-process
-reduction — the minimal DCN analog of the pod-scale launch recipe
+reduction — the minimal analog of the multi-host launch recipe
 (SURVEY.md §2.10):
 
     # per host
@@ -36,7 +36,7 @@ _WORKER = textwrap.dedent(
     import numpy as np
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from copula_var_tpu.parallel import distributed, make_mesh
+    from copula_var.parallel import distributed, make_mesh
     try:
         distributed.initialize(
             coordinator_address=f"127.0.0.1:{port}",
@@ -63,11 +63,11 @@ _WORKER = textwrap.dedent(
     # days, 2 per host; the while_loop's convergence reduction rides the
     # cross-process collective. Each process checks its local shards
     # against a single-process f64 reference computed independently.
-    from copula_var_tpu.ops.grids import garch_grid
-    from copula_var_tpu.ops.quadrature import (
+    from copula_var.ops.grids import garch_grid
+    from copula_var.ops.quadrature import (
         CopulaSpec, garch_day_tensors, garch_integrals_cached,
     )
-    from copula_var_tpu.parallel import sharded_bisection_solve
+    from copula_var.parallel import sharded_bisection_solve
     rng = np.random.default_rng(0)
     T, n = 4, 24
     x, dx = garch_grid(n)
@@ -114,10 +114,10 @@ _WORKER = textwrap.dedent(
     # copula params, compared against an independent single-device
     # engine='xla' solve in the same process. Exercises put_global /
     # fetch (parallel/multiprocess.py) through every solver stage.
-    from copula_var_tpu.backtest import MsmAdapter, VaRBacktest
-    from copula_var_tpu.copulas.fit import StudentFit
-    from copula_var_tpu.data.returns import from_returns
-    from copula_var_tpu.models.fit import MsmFit
+    from copula_var.backtest import MsmAdapter, VaRBacktest
+    from copula_var.copulas.fit import StudentFit
+    from copula_var.data.returns import from_returns
+    from copula_var.models.fit import MsmFit
     rng2 = np.random.default_rng(1)
     N, T2 = 60, 6
     rets = rng2.multivariate_normal(np.zeros(2), corr, size=N + T2)

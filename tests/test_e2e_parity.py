@@ -119,10 +119,10 @@ def test_e2e_garch_gaussian(sequential_joblib, monkeypatch):
                             second_guess=(-3.5, -2))
 
     # --- our side ---------------------------------------------------------
-    from copula_var_tpu.backtest import GarchAdapter, VaRBacktest
-    from copula_var_tpu.copulas.fit import GaussianFit
-    from copula_var_tpu.data.returns import from_returns
-    from copula_var_tpu.models.fit import GarchFit
+    from copula_var.backtest import GarchAdapter, VaRBacktest
+    from copula_var.copulas.fit import GaussianFit
+    from copula_var.data.returns import from_returns
+    from copula_var.models.fit import GarchFit
 
     data = from_returns(returns, TICKERS, N, weights)
     fits = [
@@ -183,10 +183,10 @@ def test_e2e_mean_reverting_plackett(sequential_joblib, monkeypatch):
                             second_guess=(-3.5, -2))
 
     # --- our side ---------------------------------------------------------
-    from copula_var_tpu.backtest import MeanRevertingAdapter, VaRBacktest
-    from copula_var_tpu.copulas.fit import PlackettFit
-    from copula_var_tpu.data.returns import from_returns
-    from copula_var_tpu.models.fit import UkfFit
+    from copula_var.backtest import MeanRevertingAdapter, VaRBacktest
+    from copula_var.copulas.fit import PlackettFit
+    from copula_var.data.returns import from_returns
+    from copula_var.models.fit import UkfFit
 
     data = from_returns(returns, TICKERS, N, weights)
     fits = [
@@ -252,10 +252,10 @@ def test_e2e_garch_student(sequential_joblib, monkeypatch):
                             second_guess=(-3.5, -2))
 
     # --- our side ---------------------------------------------------------
-    from copula_var_tpu.backtest import GarchAdapter, VaRBacktest
-    from copula_var_tpu.copulas.fit import StudentFit
-    from copula_var_tpu.data.returns import from_returns
-    from copula_var_tpu.models.fit import GarchFit
+    from copula_var.backtest import GarchAdapter, VaRBacktest
+    from copula_var.copulas.fit import StudentFit
+    from copula_var.data.returns import from_returns
+    from copula_var.models.fit import GarchFit
 
     data = from_returns(returns, TICKERS, N, weights)
     fits = [
@@ -319,10 +319,10 @@ def test_e2e_msm_plackett(sequential_joblib, monkeypatch):
                             second_guess=(-3.5, -2))
 
     # --- our side ---------------------------------------------------------
-    from copula_var_tpu.backtest import MsmAdapter, VaRBacktest
-    from copula_var_tpu.copulas.fit import PlackettFit
-    from copula_var_tpu.data.returns import from_returns
-    from copula_var_tpu.models.fit import MsmFit
+    from copula_var.backtest import MsmAdapter, VaRBacktest
+    from copula_var.copulas.fit import PlackettFit
+    from copula_var.data.returns import from_returns
+    from copula_var.models.fit import MsmFit
 
     data = from_returns(returns, TICKERS, N, weights)
     fits = [
@@ -386,10 +386,10 @@ def test_e2e_msm_student(sequential_joblib, monkeypatch):
                             second_guess=(-3.5, -2))
 
     # --- our side ---------------------------------------------------------
-    from copula_var_tpu.backtest import MsmAdapter, VaRBacktest
-    from copula_var_tpu.copulas.fit import StudentFit
-    from copula_var_tpu.data.returns import from_returns
-    from copula_var_tpu.models.fit import MsmFit
+    from copula_var.backtest import MsmAdapter, VaRBacktest
+    from copula_var.copulas.fit import StudentFit
+    from copula_var.data.returns import from_returns
+    from copula_var.models.fit import MsmFit
 
     data = from_returns(returns, TICKERS, N, weights)
     fits = [
@@ -483,14 +483,14 @@ def _ref_copula_wrapper(copula, model_est, monkeypatch):
 
 
 def _our_side(family, copula, returns, N, weights, num_points):
-    from copula_var_tpu.backtest import (
+    from copula_var.backtest import (
         GarchAdapter, MeanRevertingAdapter, MsmAdapter, VaRBacktest,
     )
-    from copula_var_tpu.copulas.fit import (
+    from copula_var.copulas.fit import (
         GaussianFit, PlackettFit, StudentFit,
     )
-    from copula_var_tpu.data.returns import from_returns
-    from copula_var_tpu.models.fit import GarchFit, MsmFit, UkfFit
+    from copula_var.data.returns import from_returns
+    from copula_var.models.fit import GarchFit, MsmFit, UkfFit
 
     data = from_returns(returns, TICKERS, N, weights)
     if family == "garch":

@@ -8,12 +8,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from copula_var_tpu.backtest import MsmAdapter, VaRBacktest
-from copula_var_tpu.copulas.fit import StudentFit
-from copula_var_tpu.data.returns import from_returns
-from copula_var_tpu.models.fit import MsmFit
-from copula_var_tpu.ops.grids import garch_grid, msm_grid
-from copula_var_tpu.ops.quadrature import halfspace_mask
+from copula_var.backtest import MsmAdapter, VaRBacktest
+from copula_var.copulas.fit import StudentFit
+from copula_var.data.returns import from_returns
+from copula_var.models.fit import MsmFit
+from copula_var.ops.grids import garch_grid, msm_grid
+from copula_var.ops.quadrature import halfspace_mask
 
 CORR = np.array([[1.0, 0.45], [0.45, 1.0]])
 
@@ -34,7 +34,7 @@ def _tiny_sigma_backtest(rng, engine):
         model_fits_override=fits,
         copula_fit_override=StudentFit(6.0, CORR, 0.0,
                                        np.array([6.0, 0.45])),
-        engine=engine,
+        engine=engine, interpret=engine == "pallas",
     )
 
 
@@ -75,7 +75,7 @@ def test_grid_raises_when_num_points_too_small():
     region when the divisors eat the whole budget; `build_grid` raises
     instead (`ops/grids.py`). The msm/garch fixed splits (4,7)/(8,5) can
     never trigger it (2/4 + 2/7 < 1), so drive the generic entry (nonuniform_grid)."""
-    from copula_var_tpu.ops.grids import nonuniform_grid
+    from copula_var.ops.grids import nonuniform_grid
 
     with pytest.raises(ValueError, match="too small"):
         nonuniform_grid(8, outer_div=2, middle_div=2)
@@ -87,7 +87,7 @@ def test_grid_raises_when_num_points_too_small():
 def test_artifacts_roundtrip_through_pallas_engine(rng, tmp_path):
     """save -> load -> engine='pallas' solve must equal the pre-save
     pallas solve (the checkpoint/resume path feeding the fused engine)."""
-    from copula_var_tpu.utils.artifacts import load_artifacts, save_artifacts
+    from copula_var.utils.artifacts import load_artifacts, save_artifacts
 
     N, T = 40, 8
     rets = rng.multivariate_normal(np.zeros(2), CORR, size=N + T)
@@ -103,14 +103,14 @@ def test_artifacts_roundtrip_through_pallas_engine(rng, tmp_path):
                                        np.array([6.0, 0.45])),
     )
     bt = VaRBacktest(data, MsmAdapter(k=2), "student", engine="pallas",
-                     **kwargs)
+                     interpret=True, **kwargs)
     want = bt.calc_var(0.05)
 
     path = str(tmp_path / "bt.npz")
     save_artifacts(path, bt)
     bt2 = load_artifacts(path, data, adapter=MsmAdapter(k=2))
     assert bt2.engine == "xla"  # dataclass default on restored objects
-    bt2.engine = "pallas"
+    bt2.engine, bt2.interpret = "pallas", True
     got = bt2.calc_var(0.05)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
 
@@ -121,7 +121,7 @@ def test_dim4_transient_budget_guard():
     `_day_batch` rejects it with an actionable message instead of letting
     the scheduler discover it (the reference's engine silently corrupts
     above dim 2, `create_grids.py:135-137`)."""
-    from copula_var_tpu.ops.quadrature import _day_batch
+    from copula_var.ops.quadrature import _day_batch
 
     with pytest.raises(ValueError, match="transient budget"):
         _day_batch(100, 4, 500)
@@ -134,12 +134,12 @@ def test_dim4_small_n_quadrature_runs():
     small n (the guard is a memory bound, not a dimensionality cap):
     independent-copula integral over the full box factorizes to the
     product of per-dim masses — an analytic cross-check."""
-    from copula_var_tpu.ops.quadrature import (
+    from copula_var.ops.quadrature import (
         CopulaSpec,
         garch_day_columns,
         garch_integrals_tcached,
     )
-    from copula_var_tpu.ops.grids import garch_grid
+    from copula_var.ops.grids import garch_grid
 
     dim, n, T = 4, 16, 3
     x, dx = garch_grid(n)
@@ -154,7 +154,7 @@ def test_dim4_small_n_quadrature_runs():
         garch_integrals_tcached(bounds, cols, p_cols, x, dx,
                                 np.full(dim, 1.0 / dim), spec)
     )
-    from copula_var_tpu.ops.special import norm_pdf
+    from copula_var.ops.special import norm_pdf
 
     pdfx = np.asarray(norm_pdf(jnp.asarray(x)))
     mass1 = float(np.sum(pdfx * dx))
@@ -170,8 +170,8 @@ def test_dim4_backtest_end_to_end(rng):
     """4-asset portfolio through the full pipeline at small num_points
     (the transient budget is a memory bound, not a dimensionality cap):
     xla and the day-sharded transform-column engine agree exactly."""
-    from copula_var_tpu.backtest import create_var_backtest
-    from copula_var_tpu.data import returns as returns_mod
+    from copula_var.backtest import create_var_backtest
+    from copula_var.data import returns as returns_mod
 
     n_total, n_in, dim = 140, 120, 4
     rets = rng.standard_normal((n_total, dim)) * (

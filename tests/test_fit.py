@@ -6,9 +6,9 @@ import pytest
 
 import jax
 
-from copula_var_tpu.copulas import fit as cfit
-from copula_var_tpu.models import fit as mfit
-from copula_var_tpu.models import garch, ukf
+from copula_var.copulas import fit as cfit
+from copula_var.models import fit as mfit
+from copula_var.models import garch, ukf
 
 
 def test_garch_fit_recovers_params():
@@ -39,7 +39,7 @@ def test_msm_fit_reaches_profile_optimum():
     import jax.numpy as jnp
     from scipy.optimize import minimize
 
-    from copula_var_tpu.models import msm
+    from copula_var.models import msm
 
     ret, _, _, _ = msm.simulate(jax.random.PRNGKey(0), 4, 0.3, 0.05, 18.0, 0.5, 3000)
     r = np.asarray(ret)
@@ -161,8 +161,8 @@ def test_gs_iters_honors_tol():
     """VERDICT r03 weak #5: tol/max_iter must size the golden-section
     budgets. None -> the calibrated default; loose tol -> fewer
     iterations; tight tol -> more (capped by max_iter)."""
-    from copula_var_tpu.copulas.fit import _gs_iters
-    from copula_var_tpu.ops.solvers import _GR
+    from copula_var.copulas.fit import _gs_iters
+    from copula_var.ops.solvers import _GR
     import math
 
     assert _gs_iters(1.98, None, default=90) == 90

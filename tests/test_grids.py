@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from copula_var_tpu.ops import garch_grid, msm_grid
+from copula_var.ops import garch_grid, msm_grid
 
 
 def _reference_grid(num_points, outer_div, middle_div, x_min=-5, x_max=5):

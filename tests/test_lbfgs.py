@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from copula_var_tpu.ops.lbfgs import PENALTY, box_lbfgs_batch
+from copula_var.ops.lbfgs import PENALTY, box_lbfgs_batch
 
 
 def _rosenbrock(x):

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from copula_var_tpu.models import msm
+from copula_var.models import msm
 
 from tests._reference import ref
 

@@ -13,10 +13,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from copula_var_tpu.backtest import create_var_backtest
-from copula_var_tpu.data import returns as returns_mod
-from copula_var_tpu.models import fit as mfit
-from copula_var_tpu.models import msm as msm_mod
+from copula_var.backtest import create_var_backtest
+from copula_var.data import returns as returns_mod
+from copula_var.models import fit as mfit
+from copula_var.models import msm as msm_mod
 
 
 def _msm_k10_returns(rng, n):
@@ -84,8 +84,7 @@ def test_kron_matches_dense_k10(rng):
 def test_msm_k12_kron_likelihood_and_collapse(rng):
     """k = 12 (4096 states) stays usable through the Kronecker path: the
     likelihood evaluates finite in O(k 2^k) (the dense path would be a
-    4096^2 matvec per step — 19 s/eval on the v5e, benchmarks/
-    msm_k_scaling.py), and the vol-state collapse yields the k+1 = 13
+    4096^2 matvec per step, benchmarks/msm_k_scaling.py), and the vol-state collapse yields the k+1 = 13
     unique multiplier-product levels the adapters integrate over."""
     r = _msm_k10_returns(rng, 200)
     ll = float(msm_mod.log_likelihood(12, 0.45, 1.0, 5.0, 0.4, r,
@@ -123,7 +122,7 @@ def test_msm_k12_backtest_end_to_end(rng):
 
 def test_kron_gradient_matches_dense(rng):
     """The hand-written Kronecker VJP (custom_vjp — the (2,)*k autodiff
-    residuals pad 21x on TPU and OOM'd k=12) matches the dense-path
+    residuals ran out of memory at k=12) matches the dense-path
     autodiff gradient of the log-likelihood in every parameter."""
     import jax
 

@@ -14,14 +14,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from copula_var_tpu.backtest import create_var_backtest
-from copula_var_tpu.data import synthetic_dataset
-from copula_var_tpu.ops.grids import msm_grid
-from copula_var_tpu.ops.quadrature import (
-    CopulaSpec,
-    msm_day_tensors,
-    msm_integrals_cached,
-)
+from copula_var.backtest import create_var_backtest
+from copula_var.data import synthetic_dataset
+from copula_var.ops.grids import msm_grid
+from copula_var.ops.quadrature import CopulaSpec, msm_day_tensors
 
 LEVELS = (0.01, 0.05, 0.1)
 
@@ -66,12 +62,10 @@ def test_calc_var_levels_msm_student():
 
 
 def test_pallas_levels_kernel_matches_single(rng):
-    """L=2 fused multi-level launch vs two single-level launches with
-    identical brackets: same f32 ops, same iteration count -> exact."""
-    from copula_var_tpu.ops.pallas_solver import (
-        msm_solve_pallas,
-        msm_solve_pallas_levels,
-    )
+    """L=2 fused multi-level launch vs two single-level launches: the
+    level loop runs inside one program per day with the same f32 ops and
+    the same iteration count per level -> exact in interpret mode."""
+    from copula_var.ops.pallas_solver import msm_full_solve_pallas_levels
 
     n, q, T = 32, 3, 16
     x, dx = msm_grid(n)
@@ -86,33 +80,17 @@ def test_pallas_levels_kernel_matches_single(rng):
     fcombos = np.einsum("ti,tj->tij", fbs[:, 0], fbs[:, 1]).reshape(T, -1)
     spec = CopulaSpec("student", (6.0, corr))
     C = jnp.asarray(msm_day_tensors(fbs, x, uvols, spec), jnp.float32)
-
-    lower = np.full(T, -7.5)
-    upper = np.full(T, 0.0)
-    entry_up = rng.uniform(-4.0, -1.0, size=T)
-    prev_res = np.asarray(
-        msm_integrals_cached(
-            np.column_stack([np.full(T, -100.0), entry_up]),
-            C, fcombos, x, dx, dens, w,
-        )
-    )
-    ustack = np.ones(T, dtype=bool)
-    tol = 1e-6
     obj_vars = [0.01, 0.05]
 
-    multi = msm_solve_pallas_levels(
-        C, fcombos, x, dx, dens, w,
-        np.stack([lower, lower]), np.stack([upper, upper]),
-        np.stack([prev_res, prev_res]), np.stack([entry_up, entry_up]),
-        np.stack([ustack, ustack]), obj_vars, tol, interpret=True,
+    multi, _ = msm_full_solve_pallas_levels(
+        C, fcombos, x, dx, dens, w, obj_vars, interpret=True,
     )
     assert multi.shape == (2, T)
     for i, ov in enumerate(obj_vars):
-        single = msm_solve_pallas(
-            C, fcombos, x, dx, dens, w, lower, upper, prev_res, entry_up,
-            ustack, ov, tol, interpret=True,
+        single, _ = msm_full_solve_pallas_levels(
+            C, fcombos, x, dx, dens, w, [ov], interpret=True,
         )
-        np.testing.assert_array_equal(multi[i], single)
+        np.testing.assert_array_equal(multi[i], single[0])
 
 
 def test_pallas_engine_levels_matches_xla():
@@ -122,7 +100,7 @@ def test_pallas_engine_levels_matches_xla():
     bt_x = create_var_backtest(data, "garch", "gaussian", **kwargs)
     want = bt_x.calc_var_levels(LEVELS)
     bt_p = create_var_backtest(data, "garch", "gaussian", engine="pallas",
-                               **kwargs)
+                               interpret=True, **kwargs)
     got = bt_p.calc_var_levels(LEVELS)
     assert np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want, atol=2e-3)
@@ -131,7 +109,7 @@ def test_pallas_engine_levels_matches_xla():
 def test_config_obj_levels(garch_bt):
     """`SolverConfig.obj_levels` drives the batched ladder through
     `run_backtest`."""
-    from copula_var_tpu.config import BacktestConfig, run_backtest
+    from copula_var.config import BacktestConfig, run_backtest
 
     cfg = BacktestConfig(estimation_type="garch", copula_type="gaussian",
                          num_points=32)
@@ -147,10 +125,10 @@ def test_config_obj_levels(garch_bt):
 def test_calc_var_grid_outer_product(rng):
     """calc_var_grid: the (P, L, T) outer product equals per-cell
     calc_var of a per-weights backtest at each level (one dispatch)."""
-    from copula_var_tpu.backtest import GarchAdapter, VaRBacktest
-    from copula_var_tpu.copulas.fit import GaussianFit
-    from copula_var_tpu.data import returns as returns_mod
-    from copula_var_tpu.models.fit import GarchFit
+    from copula_var.backtest import GarchAdapter, VaRBacktest
+    from copula_var.copulas.fit import GaussianFit
+    from copula_var.data import returns as returns_mod
+    from copula_var.models.fit import GarchFit
 
     n_in, T = 140, 20
     rets = rng.standard_normal((n_in + T, 2))

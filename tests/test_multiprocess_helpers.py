@@ -10,8 +10,8 @@ import numpy as np
 import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from copula_var_tpu.parallel import make_mesh
-from copula_var_tpu.parallel.multiprocess import fetch, put_global
+from copula_var.parallel import make_mesh
+from copula_var.parallel.multiprocess import fetch, put_global
 
 
 def test_put_global_places_and_fetch_roundtrips():
@@ -40,10 +40,10 @@ def test_factory_forwards_fit_overrides():
     """create_var_backtest passes model/copula fit overrides through to
     VaRBacktest (the shared-cache injection path the 3x3 harness and
     artifact resume rely on)."""
-    from copula_var_tpu.backtest import create_var_backtest
-    from copula_var_tpu.copulas.fit import StudentFit
-    from copula_var_tpu.data.returns import from_returns
-    from copula_var_tpu.models.fit import GarchFit
+    from copula_var.backtest import create_var_backtest
+    from copula_var.copulas.fit import StudentFit
+    from copula_var.data.returns import from_returns
+    from copula_var.models.fit import GarchFit
 
     rng = np.random.default_rng(3)
     corr = np.array([[1.0, 0.4], [0.4, 1.0]])

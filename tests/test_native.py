@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from copula_var_tpu import native
-from copula_var_tpu.ops.grids import garch_grid, msm_grid
-from copula_var_tpu.ops.quadrature import (
+from copula_var import native
+from copula_var.ops.grids import garch_grid, msm_grid
+from copula_var.ops.quadrature import (
     CopulaSpec,
     garch_day_tensors,
     garch_integrals,

@@ -8,13 +8,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from copula_var_tpu.ops.grids import garch_grid, msm_grid
-from copula_var_tpu.ops.quadrature import (
+from copula_var.ops.grids import garch_grid, msm_grid
+from copula_var.ops.quadrature import (
     CopulaSpec,
     garch_integrals,
     msm_integrals,
 )
-from copula_var_tpu.parallel import (
+from copula_var.parallel import (
     grid_sharded_garch_integrals,
     make_mesh,
     sharded_garch_step,
@@ -129,13 +129,13 @@ def test_graft_entry_dryrun_full_mesh():
 
 
 def test_sharded_cached_step_matches(rng):
-    from copula_var_tpu.ops.quadrature import (
+    from copula_var.ops.quadrature import (
         garch_day_tensors,
         garch_integrals_cached,
         msm_day_tensors,
         msm_integrals_cached,
     )
-    from copula_var_tpu.parallel import sharded_cached_step
+    from copula_var.parallel import sharded_cached_step
 
     mesh = make_mesh(n_devices=8)
     bounds, fbs, fcombos, x, dx, dens, uvols = _msm_problem(rng)
@@ -165,11 +165,11 @@ def test_sharded_cached_step_matches(rng):
 def test_sharded_bisection_solve_matches_host(rng):
     """The day-sharded full on-device bisection (one SPMD while_loop over
     the mesh) vs a host-driven f64 bisection with identical state."""
-    from copula_var_tpu.ops.quadrature import (
+    from copula_var.ops.quadrature import (
         msm_day_tensors,
         msm_integrals_cached,
     )
-    from copula_var_tpu.parallel import sharded_bisection_solve
+    from copula_var.parallel import sharded_bisection_solve
 
     mesh = make_mesh(n_devices=8)
     bounds, fbs, fcombos, x, dx, dens, uvols = _msm_problem(rng)
@@ -224,7 +224,7 @@ def test_sharded_bisection_solve_matches_host(rng):
 def test_grid_sharded_msm_psum_matches_dense(rng, copula):
     """MSM-family grid sharding: partial state sandwiches psum-reduced
     over the 'grid' axis must equal the dense single-device engine."""
-    from copula_var_tpu.parallel import grid_sharded_msm_integrals
+    from copula_var.parallel import grid_sharded_msm_integrals
 
     mesh = make_mesh(n_devices=8, axis_names=("grid",))
     bounds, fbs, fcombos, x, dx, dens, uvols = _msm_problem(rng, T=6, n=32)
@@ -248,8 +248,8 @@ def test_grid_sharded_msm_psum_matches_dense(rng, copula):
 def test_grid_sharded_msm_2d_mesh(rng):
     """2-D ('days', 'grid') mesh: days shard over one axis while each
     integral's grid rows shard over the other — the day x grid product
-    that scales one backtest across a pod slice."""
-    from copula_var_tpu.parallel import grid_sharded_msm_integrals
+    that scales one backtest across many devices."""
+    from copula_var.parallel import grid_sharded_msm_integrals
 
     mesh = make_mesh(n_devices=8, axis_names=("days", "grid"), shape=(2, 4))
     bounds, fbs, fcombos, x, dx, dens, uvols = _msm_problem(rng, T=6, n=32)
@@ -268,7 +268,7 @@ def test_grid_sharded_msm_2d_mesh(rng):
 
 
 def test_grid_sharded_msm_requires_divisibility(rng):
-    from copula_var_tpu.parallel import grid_sharded_msm_integrals
+    from copula_var.parallel import grid_sharded_msm_integrals
 
     mesh = make_mesh(n_devices=8, axis_names=("grid",))
     bounds, fbs, fcombos, x, dx, dens, uvols = _msm_problem(rng, T=4, n=20)

@@ -5,8 +5,8 @@ and all three copulas, on dim = 2 (the reference's supported case)."""
 import numpy as np
 import pytest
 
-from copula_var_tpu.ops.grids import garch_grid, msm_grid
-from copula_var_tpu.ops.quadrature import (
+from copula_var.ops.grids import garch_grid, msm_grid
+from copula_var.ops.quadrature import (
     CopulaSpec,
     garch_integrals,
     halfspace_mask,
@@ -224,7 +224,7 @@ def test_garch_integral_is_probability_like(rng):
 def test_cached_path_matches_direct(rng):
     """The bounds-invariant cached day tensors must reproduce the direct
     engine exactly (up to summation reassociation)."""
-    from copula_var_tpu.ops.quadrature import (
+    from copula_var.ops.quadrature import (
         garch_day_tensors,
         garch_integrals_cached,
         msm_day_tensors,
@@ -262,7 +262,7 @@ def test_cached_path_matches_direct(rng):
 def test_transform_cached_matches_direct_dim2(rng):
     """The transform-cached engines (any-dim cache of the per-coordinate
     ppf work) must reproduce the direct engines exactly."""
-    from copula_var_tpu.ops.quadrature import (
+    from copula_var.ops.quadrature import (
         garch_day_columns,
         garch_integrals_tcached,
         msm_day_columns,
@@ -311,7 +311,7 @@ def test_transform_cached_matches_direct_dim2(rng):
 def test_transform_cached_matches_direct_dim3(rng):
     """dim = 3: the transform cache is the production fast path (full day
     tensors would be (T, n^3)); parity vs the direct engine."""
-    from copula_var_tpu.ops.quadrature import (
+    from copula_var.ops.quadrature import (
         garch_day_columns,
         garch_integrals_tcached,
         msm_day_columns,

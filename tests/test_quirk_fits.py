@@ -22,7 +22,7 @@ Determinism windows used here:
 import numpy as np
 import pytest
 
-from copula_var_tpu.models import fit as mfit
+from copula_var.models import fit as mfit
 
 from tests._reference import ref
 
@@ -122,7 +122,7 @@ def test_garch_reference_trajectory_quirk_golden(rng):
     isolates exactly the trajectory the quirk mode claims to reproduce."""
     import jax.numpy as jnp
 
-    from copula_var_tpu.models.fit import _garch_nll
+    from copula_var.models.fit import _garch_nll
 
     n = 300
     vol = np.empty(n)

@@ -16,11 +16,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from copula_var_tpu.backtest import VaRBacktest, GarchAdapter
-from copula_var_tpu.copulas.fit import GaussianFit
-from copula_var_tpu.data import returns as returns_mod
-from copula_var_tpu.models.fit import GarchFit
-from copula_var_tpu.ops.special import norm_ppf
+from copula_var.backtest import VaRBacktest, GarchAdapter
+from copula_var.copulas.fit import GaussianFit
+from copula_var.data import returns as returns_mod
+from copula_var.models.fit import GarchFit
+from copula_var.ops.special import norm_ppf
 
 
 def _setup(engine, n_points=100, T=120, refine=False):
@@ -42,6 +42,7 @@ def _setup(engine, n_points=100, T=120, refine=False):
     return VaRBacktest(
         data, GarchAdapter(p_max=1, q_max=1), "gaussian",
         num_points=n_points, engine=engine,
+        interpret=engine in ("pallas", "sharded_pallas"),
         model_fits_override=fits,
         copula_fit_override=GaussianFit(np.eye(2), 0.0, np.zeros(1)),
         refine_root=refine,
@@ -129,8 +130,8 @@ def test_trap_sweep_ignores_nan_outside_slab():
     marginal above the VaR bound) must contribute 0 exactly like the
     staircase where-mask — C * A alone poisoned the whole day (review
     finding r05)."""
-    from copula_var_tpu.ops.grids import garch_grid
-    from copula_var_tpu.ops.quadrature import (
+    from copula_var.ops.grids import garch_grid
+    from copula_var.ops.quadrature import (
         garch_integrals_cached, garch_integrals_trap,
     )
 
@@ -154,7 +155,7 @@ def test_trap_sweep_ignores_nan_outside_slab():
 def test_trap_bisect_nan_keeps_staircase_root():
     """If the trap sweep goes non-finite inside the window, the cell
     keeps its staircase root instead of silently marching to root - h."""
-    from copula_var_tpu.ops.solvers import trap_bisect
+    from copula_var.ops.solvers import trap_bisect
 
     roots = jnp.asarray([[-1.0, -2.0]])
 
@@ -178,7 +179,7 @@ def test_trap_bisect_nan_keeps_staircase_root():
 def test_msm_short_b_values_polish():
     """fit_msm with fewer than 3 basin starts must not crash the polish
     (review finding r05: hardcoded top=3 reshape)."""
-    from copula_var_tpu.models import fit as mfit
+    from copula_var.models import fit as mfit
 
     rng = np.random.default_rng(0)
     r = rng.standard_normal(200)

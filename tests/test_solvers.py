@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from copula_var_tpu.ops.solvers import golden_section_min
+from copula_var.ops.solvers import golden_section_min
 
 
 def test_golden_section_batched_quadratics():

@@ -4,7 +4,7 @@ import numpy as np
 import scipy.stats as st
 from scipy.special import erf
 
-from copula_var_tpu.ops import (
+from copula_var.ops import (
     norm_cdf,
     norm_pdf,
     norm_ppf,

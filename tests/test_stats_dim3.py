@@ -7,11 +7,11 @@ import pytest
 
 import jax
 
-from copula_var_tpu import stats
-from copula_var_tpu.backtest import create_var_backtest
-from copula_var_tpu.data import synthetic_dataset
-from copula_var_tpu.ops.grids import garch_grid
-from copula_var_tpu.ops.quadrature import CopulaSpec, garch_integrals
+from copula_var import stats
+from copula_var.backtest import create_var_backtest
+from copula_var.data import synthetic_dataset
+from copula_var.ops.grids import garch_grid
+from copula_var.ops.quadrature import CopulaSpec, garch_integrals
 
 
 def test_kupiec_and_christoffersen():

@@ -3,7 +3,7 @@ bisection pipeline (`copulas/student/generate.py`, numba stub)."""
 
 import numpy as np
 
-from copula_var_tpu.copulas import student_sampler
+from copula_var.copulas import student_sampler
 
 from tests._reference import ref
 

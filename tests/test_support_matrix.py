@@ -8,14 +8,14 @@ silent wrong answer. This test pins the unsupported cells.
 import numpy as np
 import pytest
 
-from copula_var_tpu.backtest import (
+from copula_var.backtest import (
     GarchAdapter,
     VaRBacktest,
     create_var_backtest,
 )
-from copula_var_tpu.copulas.fit import GaussianFit
-from copula_var_tpu.data import returns as returns_mod
-from copula_var_tpu.models.fit import GarchFit
+from copula_var.copulas.fit import GaussianFit
+from copula_var.data import returns as returns_mod
+from copula_var.models.fit import GarchFit
 
 
 def _bt(dim, engine, n_points=16, refine=False, copula="gaussian"):
@@ -33,16 +33,18 @@ def _bt(dim, engine, n_points=16, refine=False, copula="gaussian"):
         num_points=n_points, engine=engine, model_fits_override=fits,
         copula_fit_override=GaussianFit(np.eye(dim), 0.0, np.zeros(1)),
         refine_root=refine,
+        interpret=engine in ("pallas", "sharded_pallas"),
     )
 
 
 @pytest.mark.parametrize(
     "dim,engine,match",
     [
-        # fused Mosaic kernels exist for dim 2 (day tensors) and dim 3
-        # (column kernel) only
+        # the fused kernel (single-chip and day-sharded) solves dim 2 day
+        # tensors only; dim >= 3 runs on xla / sharded / grid_sharded
+        (3, "pallas", "dim"),
         (4, "pallas", "dim"),
-        # the sharded fused kernel is dim 2 (GSPMD day tensors) / dim 3
+        (3, "sharded_pallas", "dim"),
         (4, "sharded_pallas", "dim"),
     ],
 )
@@ -58,19 +60,6 @@ def test_refine_root_sharded_pallas_dim2_matches_xla():
     trap re-solve contracts onto the same trap root as refined xla."""
     want = _bt(2, "xla", refine=True).calc_var()
     bt = _bt(2, "sharded_pallas", refine=True)
-    got = bt.calc_var()
-    assert bt.last_solve_dispatches == 2
-    np.testing.assert_allclose(got, want, atol=5e-4)
-
-
-def test_refine_root_sharded_pallas_dim3_matches_xla():
-    """dim-3 sharded_pallas + refine_root: the fused column kernel's
-    staircase roots refine in a second shard_map dispatch over
-    day-sharded transform columns — lands on the refined xla trap root
-    (staircase start differs by the f32 plateau, the trap re-solve
-    contracts both)."""
-    want = _bt(3, "xla", refine=True).calc_var()
-    bt = _bt(3, "sharded_pallas", refine=True)
     got = bt.calc_var()
     assert bt.last_solve_dispatches == 2
     np.testing.assert_allclose(got, want, atol=5e-4)
@@ -104,7 +93,7 @@ def test_refine_root_sharded_dim3_matches_xla():
 
 
 def test_plackett_dim3_raises():
-    from copula_var_tpu.copulas.fit import PlackettFit
+    from copula_var.copulas.fit import PlackettFit
 
     rng = np.random.default_rng(3)
     rets = rng.standard_normal((140, 3))
@@ -139,9 +128,9 @@ def test_dim4_xla_and_sharded_supported():
 def test_refine_root_grid_sharded_msm_student():
     """The msm-family grid trap sweep (state-row rescaling dx -> tw,
     student transforms) matches the refined xla root exactly."""
-    from copula_var_tpu.backtest import MsmAdapter
-    from copula_var_tpu.copulas.fit import StudentFit
-    from copula_var_tpu.models.fit import MsmFit
+    from copula_var.backtest import MsmAdapter
+    from copula_var.copulas.fit import StudentFit
+    from copula_var.models.fit import MsmFit
 
     rng = np.random.default_rng(5)
     rets = rng.standard_normal((140, 2))
@@ -164,20 +153,3 @@ def test_refine_root_grid_sharded_msm_student():
     want = bt("xla").calc_var()
     got = bt("grid_sharded").calc_var()
     np.testing.assert_allclose(got, want, atol=1e-12)
-
-
-def test_refine_root_pallas_dim3_matches_xla():
-    """Single-chip pallas dim 3 + refine_root: the fused column kernel's
-    staircase roots refine post-hoc against the xla tcached trap twin
-    (one extra dispatch) — closing the last unsupported cell the docs
-    claimed was covered (review finding r05 #2)."""
-    want = _bt(3, "xla", refine=True).calc_var()
-    bt = _bt(3, "pallas", refine=True)
-    got = bt.calc_var()
-    assert bt.last_solve_dispatches == 2
-    np.testing.assert_allclose(got, want, atol=5e-4)
-    # portfolio rows refine with their own weights
-    wb = np.array([[1 / 3, 1 / 3, 1 / 3], [0.2, 0.3, 0.5]])
-    want_p = _bt(3, "xla", refine=True).calc_var_portfolios(wb)
-    got_p = bt.calc_var_portfolios(wb)
-    np.testing.assert_allclose(got_p, want_p, atol=5e-4)
